@@ -1,7 +1,7 @@
 // Native IO runtime for unified_cvo_tpu: npy parsing (the cnpy twin,
 // reference thirdparty/cnpy/cnpy.cpp used by TartanAirHandler), raw velodyne
 // .bin reading (reference KittiHandler::read_next_lidar), and a threaded
-// prefetch executor that overlaps disk IO with TPU compute (the reference's
+// prefetch executor that overlaps disk IO with device compute (the reference's
 // data path is synchronous C++; apps here double-buffer through this loader).
 //
 // Plain C ABI consumed via ctypes (unified_cvo_tpu/native/__init__.py).

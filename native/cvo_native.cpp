@@ -3,7 +3,7 @@
 // The reference keeps its measurement-processing hot path in native code
 // (vendored libelas stereo matcher, thirdparty/libelas/, ~11k LoC C++/SSE;
 // reference src/utils/StaticStereo.cpp:22-63 drives it). This library is the
-// TPU-framework equivalent: a from-scratch census/semi-global stereo matcher
+// framework's equivalent: a from-scratch census/semi-global stereo matcher
 // plus a hash-grid voxel downsampler, exported with a plain C ABI consumed
 // via ctypes (unified_cvo_tpu/native/__init__.py).
 //
@@ -25,8 +25,8 @@
 
 namespace {
 
-// One SGM recurrence step over the disparity axis (VERDICT r3 task 8:
-// the 4 aggregation passes were scalar and 20x slower than cv2's SGBM).
+// One SGM recurrence step over the disparity axis, vectorized (scalar
+// aggregation passes were 20x slower than cv2's SGBM).
 // Lp is the PADDED previous path-cost row: Lp[0] and Lp[D+1] hold 0xFFFF
 // sentinels so Lp[d +- 1] needs no branches; Lc is likewise padded.
 // Computes Lc[1..D] = clamp(c + min(Lp[d], Lp[d+-1]+P1, minprev+P2)

@@ -1,11 +1,10 @@
 """End-to-end KITTI driver throughput: host frontend vs device frontend.
 
-Renders a synthetic KITTI-layout stereo sequence (512x320, the PERF.md
-full-driver workload) and runs apps.kitti_odometry.run_sequence twice on
-the real TPU: once with the host frontend (SGBM + adaptive FAST on the
-2-core host) and once with the device frontend (census-SGM + DSO + back-
-projection in one jit, round-5 verdict task 3). Reports warm fps and the
-devkit translational error for both.
+Renders a synthetic KITTI-layout stereo sequence (512x320) and runs
+apps.kitti_odometry.run_sequence twice on the accelerator: once with the
+host frontend (SGBM + adaptive FAST on the host CPU) and once with the
+device frontend (census-SGM + DSO + backprojection in one jit). Reports
+warm fps and the devkit translational error for both.
 
 Usage: timeout 1800 python scripts/bench_driver.py [N_FRAMES]
 """
@@ -16,14 +15,15 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from unified_cvo_tpu.config import preset_path  # noqa: E402
 from unified_cvo_tpu.frontend.calibration import Calibration  # noqa: E402
 from unified_cvo_tpu.utils import synth  # noqa: E402
 from unified_cvo_tpu.utils.metrics import kitti_seq_error  # noqa: E402
 
 N_FRAMES = int(sys.argv[1]) if len(sys.argv) > 1 else 40
-PARAMS = "/root/reference/cvo_params/cvo_intensity_params_img_gpu0.yaml"
+PARAMS = preset_path("cvo_intensity_params_img_gpu0")
 
 
 def main():

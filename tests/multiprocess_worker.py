@@ -1,4 +1,4 @@
-"""Worker for the multi-process jax.distributed test (VERDICT task 5).
+"""Worker for the multi-process jax.distributed test.
 
 Launched twice (process_id 0/1) by tests/test_multiprocess.py with 4 local
 CPU devices each — an 8-device global mesh spanning a real process boundary

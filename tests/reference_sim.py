@@ -1,10 +1,10 @@
 """Literal NumPy simulation of the reference align_impl (CvoGPU.cu:1340-1572).
 
-Used to validate that the TPU align loop reproduces the reference's
+Used to validate that this repo's align loop reproduces the reference's
 *trajectory* (ell schedule, step sizes, break iteration, final pose) on
 identical inputs — the strongest fidelity check available without CUDA.
 
-Includes the pieces the TPU build intentionally redesigns, so differences
+Includes the pieces this build intentionally redesigns, so differences
 can be attributed: the ELL scan-order num_neighbors row cap
 (fill_in_A_mat_gpu, CvoGPU.cu:541-589), the cap shrink to 1.2x the observed
 max row count (CvoGPU.cu:1519-1529), and the std::queue indicator.

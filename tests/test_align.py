@@ -5,15 +5,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from unified_cvo_tpu.config import CvoParams, read_cvo_params_yaml
-from unified_cvo_tpu.datasets.pcd import load_demo_cloud, read_pcd
+from fixtures import write_demo_pcds
+from unified_cvo_tpu.config import CvoParams, load_preset
+from unified_cvo_tpu.datasets.pcd import read_pcd
 from unified_cvo_tpu.models.align import align, compute_association, function_angle
 from unified_cvo_tpu.ops import lie
 from unified_cvo_tpu.utils.pointcloud import make_pointcloud
-
-DEMO_SRC = "/root/reference/demo_data/source.pcd"
-DEMO_TGT = "/root/reference/demo_data/target.pcd"
-OUTDOOR_YAML = "/root/reference/cvo_params/cvo_outdoor_params.yaml"
 
 
 def _bunnyish_cloud(rng, n=400):
@@ -65,20 +62,21 @@ def test_align_recovers_synthetic_pose(seed):
     assert err < 0.03, (err, int(info.iterations), float(info.final_ell))
 
 
-def test_align_demo_fixture():
+def test_align_demo_fixture(tmp_path):
     """The reference demo: two colored PCDs under cvo_outdoor_params
-    (README.md:58-73, main_cvo_gpu_align_two_color_pcd.cpp).
+    (README.md:58-73, main_cvo_gpu_align_two_color_pcd.cpp), on a seeded
+    colored pair at the demo's sizes (~25 deg rotation, centroids ~5.8 m
+    apart; tests/fixtures.py) written as ASCII PCD and read back.
 
-    Subsampled for CPU speed; the recovered pose was cross-validated against
-    a trimmed-ICP oracle (R ~ 25deg rotation, t ~ [-1.8, 1.0, 2.6]). A faster
-    decay schedule than the reference's 100k-iteration first-frame preset is
-    used so the test finishes in ~15s; the full-resolution demo app uses the
-    true preset on TPU.
+    Subsampled for CPU speed, with a faster decay schedule than the
+    reference's 100k-iteration first-frame preset so the test finishes in
+    seconds.
     """
     from scipy.spatial import cKDTree
 
-    sx, sc = read_pcd(DEMO_SRC)
-    tx, tc = read_pcd(DEMO_TGT)
+    src_path, tgt_path = write_demo_pcds(tmp_path)
+    sx, sc = read_pcd(src_path)
+    tx, tc = read_pcd(tgt_path)
     rng = np.random.default_rng(0)
     si = rng.permutation(len(sx))[:260]
     ti = rng.permutation(len(tx))[:460]
@@ -88,7 +86,7 @@ def test_align_demo_fixture():
         return make_pointcloud(x, features=feats, bucket=64)
 
     src, tgt = mk(sx[si], sc[si]), mk(tx[ti], tc[ti])
-    p = read_cvo_params_yaml(OUTDOOR_YAML)
+    p = load_preset("cvo_outdoor_params")
     # the demo main sets ell_init to the cloud-mean distance (main:56-60)
     dist = float(np.linalg.norm(sx[si].mean(0) - tx[ti].mean(0)))
     p = p.replace(
@@ -109,7 +107,10 @@ def test_align_demo_fixture():
     assert np.median(d_after) < 0.9, np.median(d_after)
     assert (d_after < 0.3).mean() > 0.15
     cos_before = float(function_angle(src, tgt, jnp.eye(4), 0.5, p))
-    cos_after = float(function_angle(src, tgt, jnp.asarray(T), 0.5, p))
+    # function_angle takes the source->target transform (it moves the
+    # target by its inverse); align returned the target->source map
+    cos_after = float(function_angle(
+        src, tgt, jnp.asarray(np.linalg.inv(T), jnp.float32), 0.5, p))
     assert cos_after > cos_before
 
 

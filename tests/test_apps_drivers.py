@@ -333,7 +333,9 @@ def test_local_mapping_driver(tmp_path):
                                  ceil_y=-1.2, length=30.0)
     traj = synth.corridor_trajectory(5, step=0.08, yaw_rate=0.015, bob=0.005)
     synth.write_tum_sequence(d, scene, traj, calib)
-    params = "/root/reference/cvo_params/cvo_rgbd_params.yaml"
+    from unified_cvo_tpu.config import preset_path
+
+    params = preset_path("cvo_rgbd_params")
 
     out = str(tmp_path / "on")
     k, nkf, nvox = local_mapping.run_sequence(

@@ -9,17 +9,33 @@ import pytest
 from unified_cvo_tpu.utils.logging import MetricsLogger, phase_timer
 
 
-def test_evaluate_odometry_on_reference_artifacts(capsys):
+def _write_artifacts(root):
+    """KITTI-layout stand-ins for the reference's stored artifacts:
+    ground_truth/00/00.txt, ground_truth/03/03.txt and a geometric-CVO-like
+    result directory (tests/fixtures.py drift levels)."""
+    from fixtures import drifted, kitti_trajectory, write_kitti_poses
+    from test_metrics import METHODS
+
+    res = root / "results" / "cvo_geometric"
+    res.mkdir(parents=True)
+    for seq, n in (("00", 1000), ("03", 300)):
+        gt = kitti_trajectory(n, seed=int(seq))
+        (root / "ground_truth" / seq).mkdir(parents=True)
+        write_kitti_poses(root / "ground_truth" / seq / f"{seq}.txt", gt)
+        write_kitti_poses(res / f"{seq}.txt",
+                          drifted(gt, 0, *METHODS["geometric"]))
+    return str(root / "ground_truth"), str(res)
+
+
+def test_evaluate_odometry_on_reference_artifacts(capsys, tmp_path):
     from unified_cvo_tpu.apps.evaluate_odometry import main
 
-    rc = main(
-        ["/root/reference/ground_truth",
-         "/root/reference/results/cvo_geometric_img_gpu0_oct23", "00"]
-    )
+    gt_dir, res_dir = _write_artifacts(tmp_path)
+    rc = main([gt_dir, res_dir, "00"])
     assert rc == 0
     out = capsys.readouterr().out
     assert "00" in out and "avg" in out
-    # seq 00 geometric error ~4.06 % per the stored artifact
+    # the seq-00 stand-in carries the geometric drift level (~4 %)
     line = [l for l in out.splitlines() if l.strip().startswith("00")][0]
     t_err = float(line.split()[1])
     assert 3.5 < t_err < 4.5, line
@@ -28,23 +44,20 @@ def test_evaluate_odometry_on_reference_artifacts(capsys):
 def test_traj_viewer(tmp_path):
     from unified_cvo_tpu.apps.viewer import plot_trajectories
 
+    gt_dir, res_dir = _write_artifacts(tmp_path)
     out = plot_trajectories(
         str(tmp_path / "traj.png"),
-        ["/root/reference/ground_truth/03/03.txt",
-         "/root/reference/results/cvo_geometric_img_gpu0_oct23/03.txt"],
+        [os.path.join(gt_dir, "03", "03.txt"), os.path.join(res_dir, "03.txt")],
         labels=["gt", "cvo"],
     )
     assert os.path.getsize(out) > 10000
 
 
 def test_pcd_viewer(tmp_path):
+    from fixtures import write_demo_pcds
     from unified_cvo_tpu.apps.viewer import plot_pcds
 
-    out = plot_pcds(
-        str(tmp_path / "pcd.png"),
-        ["/root/reference/demo_data/source.pcd",
-         "/root/reference/demo_data/target.pcd"],
-    )
+    out = plot_pcds(str(tmp_path / "pcd.png"), list(write_demo_pcds(tmp_path)))
     assert os.path.getsize(out) > 10000
 
 

@@ -29,10 +29,9 @@ import os
 import numpy as np
 import pytest
 
+from unified_cvo_tpu.config import preset_path
 from unified_cvo_tpu.utils import synth
 from unified_cvo_tpu.utils.metrics import ate_rmse, kitti_seq_error, rpe_rmse
-
-REF_PARAMS = "/root/reference/cvo_params"
 
 
 # ----------------------------------------------------------------- fixtures
@@ -66,7 +65,7 @@ def tum_seq(tmp_path_factory):
 
 
 def test_sgbm_disparity_epe_vs_ground_truth(kitti_seq):
-    """Stereo front-end depth quality, measured (VERDICT task 6): SGBM
+    """Stereo front-end depth quality, measured: SGBM
     disparity against the renderer's exact disparity."""
     from unified_cvo_tpu.frontend.stereo import compute_disparity
 
@@ -86,7 +85,7 @@ def test_sgbm_disparity_epe_vs_ground_truth(kitti_seq):
 
 def test_native_sgm_disparity_epe_vs_ground_truth(kitti_seq, native_built):
     """The from-scratch census/SGM in native/ (the libelas replacement)
-    measured against exact ground truth (VERDICT task 6): with its median +
+    measured against exact ground truth: with its median +
     speckle post-filters it matches cv2 SGBM quality (mean EPE ~0.25 px vs
     ~0.21, better median, 90% vs 75% validity) and its downstream E2E ATE
     (0.0139 m) is equivalent to SGBM's (0.015 m) — depth parity settled;
@@ -118,7 +117,7 @@ def test_kitti_stereo_odometry_e2e(kitti_seq, tmp_path):
     d, calib, traj, _ = kitti_seq
     out = str(tmp_path / "traj.txt")
     run_sequence(
-        d, os.path.join(REF_PARAMS, "cvo_intensity_params_img_gpu0.yaml"),
+        d, preset_path("cvo_intensity_params_img_gpu0"),
         out, denoise=False, capacity=4096, chunk=2048, max_iter=200,
         log=lambda *a: None,
     )
@@ -147,7 +146,7 @@ def test_tum_rgbd_odometry_e2e(tum_seq, tmp_path):
     d, calib, traj = tum_seq
     out = str(tmp_path / "traj.txt")
     poses, stamps = run_sequence(
-        d, os.path.join(REF_PARAMS, "cvo_rgbd_params.yaml"), out,
+        d, preset_path("cvo_rgbd_params"), out,
         denoise=False, chunk=2048, max_iter=200, capacity=4096,
         log=lambda *a: None,
     )
@@ -207,7 +206,7 @@ def test_tartan_rgbd_odometry_e2e(tmp_path):
     traj = synth.corridor_trajectory(7, step=0.1, yaw_rate=0.015, bob=0.004)
     synth.write_tartan_sequence(d, scene, traj)
     out = str(tmp_path / "traj.txt")
-    run_sequence(d, os.path.join(REF_PARAMS, "cvo_rgbd_params.yaml"), out,
+    run_sequence(d, preset_path("cvo_rgbd_params"), out,
                  capacity=4096, chunk=2048, max_iter=250,
                  log=lambda *a: None)
     # tartan trajectories are 7-column (x y z qx qy qz qw, no timestamp)
@@ -285,7 +284,7 @@ def _perturbed(gt, rng, t_sigma=0.03, r_sigma=0.015):
 
 
 def test_online_slam_loop_closure_e2e(tmp_path):
-    """VERDICT r3 task 7: the FULL online SLAM pipeline (odometry ->
+    """The FULL online SLAM pipeline (odometry ->
     function-angle keyframing -> pose graph -> loop closure -> BKI map) on
     a 48-frame loop through a pillar-occluded room with sensor depth
     noise. Asserts the loop closure improves on raw odometry and the map
@@ -308,7 +307,7 @@ def test_online_slam_loop_closure_e2e(tmp_path):
     synth.write_tum_sequence(d, scene, traj, calib, depth_noise=0.005)
 
     params = read_cvo_params_yaml(
-        os.path.join(REF_PARAMS, "cvo_rgbd_params.yaml"))
+        preset_path("cvo_rgbd_params"))
     tum = TumHandler(d)
     clouds = []
     while True:

@@ -187,7 +187,7 @@ def test_device_solver_matches_host_loop(rng):
 
 
 def test_cg_solver_matches_dense(rng):
-    """The matrix-free block-sparse PCG GN (VERDICT task 10, the
+    """The matrix-free block-sparse PCG GN (the
     SPARSE_SCHUR-scale path) must reproduce the dense Cholesky solve on a
     chain+skip covis graph, and scale to 100+ frames without materializing
     the 6F x 6F Hessian."""

@@ -135,3 +135,31 @@ def test_association_topk(rng):
                 assert j >= 0 and np.isclose(row[j], v, rtol=1e-4)
             else:
                 assert j == -1
+
+
+@pytest.mark.parametrize("flags", [
+    dict(),
+    dict(is_using_intensity=1, c_ell=0.5, c_sigma=1.0),
+    dict(is_using_range_ell=1),
+])
+def test_row_chunked_oracle_matches_loop_oracle(flags, rng):
+    """oracle_dense_moments (the float64 reference the chip smoke compares
+    16k x 16k passes with) reproduces the literal loop oracles."""
+    from oracle import oracle_dense_moments
+
+    p = CvoParams(sp_thres=0.002, **flags)
+    x, y, kw_x, kw_y = _random_clouds(rng, n=40, m=33,
+                                      features=bool(flags))
+    x, y = x.astype(np.float64), y.astype(np.float64)   # both in float64
+    xf, yf = kw_x.get("features"), kw_y.get("features")
+    if flags:
+        xf, yf = xf.astype(np.float64), yf.astype(np.float64)
+    A = oracle_kernel_matrix(p, 0.45, x, y, xf, yf)
+    tw, norm = oracle_flow(p, A, x, y)
+    ref = oracle_step_coeffs(p, A, 0.45, x, y, tw[:3], tw[3:])
+    got = oracle_dense_moments(p, 0.45, x, y, [tw], rows=7, xf=xf, yf=yf)
+    assert got["nonzeros"] == int((A > 0).sum())
+    np.testing.assert_allclose(got["a_sum"], A.sum(), rtol=1e-12)
+    np.testing.assert_allclose(got["twist"], tw, atol=1e-12)
+    np.testing.assert_allclose(got["joint_norm"], norm, rtol=1e-12)
+    np.testing.assert_allclose(got["steps"][0], ref, rtol=1e-10, atol=1e-12)

@@ -108,7 +108,7 @@ def test_ell_passes_match_dense_oracle(rng):
     twist, _ = kernels.flow_from_stats(params, src, ref)
     B0, C0, D0, E0 = kernels.step_coeffs(params, ell, src, y_t, twist, chunk=512)
     B1, C1, D1, E1 = nbr.step_coeffs_ell(params, ell, src, a, yts, twist)
-    # the oracle computes the pair dots as x@xi.T - ydot (MXU form) while the
+    # the oracle computes the pair dots as x@xi.T - ydot (matmul form) while the
     # ELL pass uses the direct (x - y).xi broadcast; only f32 rounding differs
     for r, g in zip((B0, C0, D0, E0), (B1, C1, D1, E1)):
         np.testing.assert_allclose(g, r, rtol=1e-3, atol=5e-3)
@@ -143,45 +143,6 @@ def test_overflow_is_reported_on_dense_cloud(rng):
     T, ret, info = align(src, tgt, jnp.eye(4), params, backend="ell",
                          max_iter=5, nl_k=32, nl_per_cell=4)
     assert int(info.nl_overflow) > 0
-
-
-@pytest.mark.parametrize("per_cell_cap", [8, 24])
-def test_kernel_select_matches_sort_path(rng, per_cell_cap):
-    """The fused pallas_select build path (production on TPU via
-    select='auto') must produce the same neighbor list as the sort path:
-    same valid slots, indices, raw coordinates, and overflow. Run under
-    the Mosaic interpreter so CI covers it on the CPU mesh; cap 24
-    exercises the derived lane padding (3P=72 -> CP=96; a hard-coded
-    CP=32 crashed tracing for any cap > 10)."""
-    params = _params()
-    xyz = _scene(rng)
-    xyz2 = _scene(rng) + np.float32([0.15, 0.0, 0.1])
-    src = make_pointcloud(xyz, bucket=512)
-    tgt = make_pointcloud(xyz2, bucket=512)
-    R, ell = jnp.eye(3), jnp.float32(params.ell_init)
-    T = jnp.float32([0.02, -0.01, 0.03])
-    kw = dict(k=32, skin=0.3, per_cell_cap=per_cell_cap)
-    nl_s = nbr.build_neighbor_list(params, ell, src, tgt, R, T,
-                                   select="sort", **kw)
-    nl_k = nbr.build_neighbor_list(params, ell, src, tgt, R, T,
-                                   select="kernel_interpret", **kw)
-    assert int(nl_s.overflow) == int(nl_k.overflow)
-    np.testing.assert_array_equal(np.asarray(nl_s.valid), np.asarray(nl_k.valid))
-    # rows are ascending-d2 in both; only exact-tie order may differ
-    # (docstring contract) — none occur on this random scene
-    np.testing.assert_array_equal(np.asarray(nl_s.idx), np.asarray(nl_k.idx))
-    np.testing.assert_array_equal(np.asarray(nl_s.y_xyz), np.asarray(nl_k.y_xyz))
-
-
-def test_kernel_select_explicit_precondition_error(rng):
-    """Explicit select='kernel' with unmet preconditions must raise, not
-    silently fall back to the sort path."""
-    params = _params()
-    src = make_pointcloud(_scene(rng, n=500), bucket=500)   # no blk divides 500
-    tgt = make_pointcloud(_scene(rng, n=500), bucket=500)
-    with pytest.raises(ValueError, match="kernel"):
-        nbr.build_neighbor_list(params, jnp.float32(params.ell_init), src,
-                                tgt, jnp.eye(3), jnp.zeros(3), select="kernel")
 
 
 def test_auto_backend_gates():
@@ -265,151 +226,68 @@ def test_align_scan_no_geometry_channel(rng):
     assert float(jnp.max(jnp.abs(T1 - T2))) < 2e-3
 
 
-# ---------------------------------------------- fused Pallas consume passes
+# ------------------------------------ ELL consume vs the float64 oracle
 
 
-def test_fused_ell_consume_matches_jnp(rng):
-    """ops/pallas_ell.py flow/step kernels (interpret mode) == the jnp ELL
-    passes, including the dead-slot +BIG-coordinate gating."""
-    from unified_cvo_tpu.ops import pallas_ell as pe
+@pytest.mark.parametrize("channels,tol", [
+    ("geometric", 1e-3),
+    # the channel factors shrink A ~1000x, so the net flow is ~1e-5 of the
+    # per-row moments it is the difference of; f32 rounding of those
+    # moments (~4e-7 relative, measured) then shows at ~8e-3 of the unit
+    # twist and ~3e-3 of B in the dense jnp pass as well — the bound is
+    # the f32 formulation's, not the ELL list's
+    ("intensity+semantic", 2e-2),
+])
+def test_ell_consume_matches_float64_oracle(rng, channels, tol):
+    """The ELL consume passes (flow stats, twist, step coefficients B..E)
+    against the plain float64 NumPy transcription of the reference kernels
+    (tests/oracle.py), including padded dead slots and the channel factor
+    cached at build. Tolerances: f32 sums over <= N*K terms in another
+    order than the oracle's float64 loops."""
+    from oracle import oracle_flow, oracle_kernel_matrix, oracle_step_coeffs
 
-    params = _params()
-    xyz = _scene(rng, n=400)                   # bucket pads -> dead slots
-    xi = np.array([0.002, 0.005, -0.001, 0.05, 0.02, 0.4], np.float32)
-    R_m, t_m = lie.se3_exp(jnp.asarray(xi), 1.0)
-    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
-    src = make_pointcloud(xyz, bucket=512)
-    tgt = make_pointcloud(xyz2, bucket=512)
-    Rinv, Tinv = lie.invert_rt(jnp.asarray(R_m), jnp.asarray(t_m))
-    ell = jnp.float32(params.ell_init)
-    nl = nbr.build_neighbor_list(params, ell, src, tgt, Rinv, Tinv,
-                                 k=64, skin=0.3, per_cell_cap=24)
-    ref, a, yts = nbr.flow_stats_ell(params, ell, src, nl, Rinv, Tinv)
-    got = pe.flow_stats_ell_fused(params, ell, src, nl, Rinv, Tinv,
-                                  tile_n=256, interpret=True)
-    assert int(got.nonzeros) == int(ref.nonzeros)
-    np.testing.assert_allclose(got.a_sum, ref.a_sum, rtol=1e-5)
-    np.testing.assert_allclose(got.row_sum, ref.row_sum, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.row_wy, ref.row_wy, rtol=1e-4, atol=1e-5)
-
-    twist, _ = kernels.flow_from_stats(params, src, ref)
-    B0, C0, D0, E0 = nbr.step_coeffs_ell(params, ell, src, a, yts, twist)
-    B1, C1, D1, E1 = pe.step_coeffs_ell_fused(
-        params, ell, src, nl, Rinv, Tinv, twist, tile_n=256, interpret=True)
-    # per-tile partial sums reassociate the f32 reductions
-    for r, g in zip((B0, C0, D0, E0), (B1, C1, D1, E1)):
-        np.testing.assert_allclose(g, r, rtol=1e-3, atol=1e-4)
-    for v in (got.row_sum, jnp.asarray([B1, C1, D1, E1])):
-        assert bool(jnp.all(jnp.isfinite(v)))
-
-
-def test_fused_ell_consume_matches_jnp_with_channels(rng):
-    """The fused kernels' chan input (pose-independent intensity+semantic
-    kernel factor) must reproduce the jnp passes on a full multi-channel
-    config, including the geometric x channel product and sp gating."""
-    from unified_cvo_tpu.ops import pallas_ell as pe
-
-    params = _params(is_using_intensity=1, c_ell=0.5, c_sigma=1.0,
-                     is_using_semantics=1, s_ell=0.6, s_sigma=1.0)
-    n = 400
-    xyz = _scene(rng, n=n)
+    kw = {}
+    if channels != "geometric":
+        kw = dict(is_using_intensity=1, c_ell=0.5, c_sigma=1.0,
+                  is_using_semantics=1, s_ell=0.6, s_sigma=1.0)
+    params = _params(**kw)
+    n = 200
+    xyz = _scene(rng, n=n, spread=4.0)
     feats = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     labels = np.eye(4, dtype=np.float32)[rng.integers(0, 4, n)]
-    xi = np.array([0.002, 0.005, -0.001, 0.05, 0.02, 0.4], np.float32)
+    xi = np.array([0.002, 0.005, -0.001, 0.05, 0.02, 0.2], np.float32)
     R_m, t_m = lie.se3_exp(jnp.asarray(xi), 1.0)
     xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
-    src = make_pointcloud(xyz, features=feats, labels=labels, bucket=512)
-    tgt = make_pointcloud(xyz2, features=feats, labels=labels, bucket=512)
+    extra = {} if channels == "geometric" else dict(features=feats,
+                                                    labels=labels)
+    src = make_pointcloud(xyz, bucket=256, **extra)   # bucket pads -> dead
+    tgt = make_pointcloud(xyz2, bucket=256, **extra)
     Rinv, Tinv = lie.invert_rt(jnp.asarray(R_m), jnp.asarray(t_m))
     ell = jnp.float32(params.ell_init)
     nl = nbr.build_neighbor_list(params, ell, src, tgt, Rinv, Tinv,
                                  k=64, skin=0.3, per_cell_cap=24)
-    assert nl.chan is not None
-    ref, a, yts = nbr.flow_stats_ell(params, ell, src, nl, Rinv, Tinv)
-    got = pe.flow_stats_ell_fused(params, ell, src, nl, Rinv, Tinv,
-                                  tile_n=256, interpret=True)
-    assert int(got.nonzeros) == int(ref.nonzeros)
-    np.testing.assert_allclose(got.a_sum, ref.a_sum, rtol=1e-5)
-    np.testing.assert_allclose(got.row_sum, ref.row_sum, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.row_wy, ref.row_wy, rtol=1e-4, atol=1e-5)
-    twist, _ = kernels.flow_from_stats(params, src, ref)
-    B0, C0, D0, E0 = nbr.step_coeffs_ell(params, ell, src, a, yts, twist)
-    B1, C1, D1, E1 = pe.step_coeffs_ell_fused(
-        params, ell, src, nl, Rinv, Tinv, twist, tile_n=256, interpret=True)
-    # gates are bit-identical (nonzeros matched above); the coefficients
-    # carry cancelling sums, so per-tile reassociation shows up at ~1e-3
-    for r, g in zip((B0, C0, D0, E0), (B1, C1, D1, E1)):
-        np.testing.assert_allclose(g, r, rtol=3e-3, atol=1e-3)
+    assert int(nl.overflow) == 0
+    stats, a, yts = nbr.flow_stats_ell(params, ell, src, nl, Rinv, Tinv)
+    twist, _ = kernels.flow_from_stats(params, src, stats)
+    B, C, D, E = nbr.step_coeffs_ell(params, ell, src, a, yts, twist)
 
-
-def test_fused_ell_align_trajectory(rng):
-    """Full align with nl_consume='fused_interpret' tracks the jnp consume
-    trajectory."""
-    params = _params()
-    xyz = _scene(rng, n=1024)
-    xi = np.array([0.001, 0.004, -0.002, 0.03, 0.01, 0.3], np.float32)
-    R_m, t_m = lie.se3_exp(jnp.asarray(xi), 1.0)
-    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
-    src = make_pointcloud(xyz, bucket=1024)
-    tgt = make_pointcloud(xyz2, bucket=1024)
-    ig = lie.rt_to_mat44(*lie.se3_exp(jnp.asarray(xi * 0.2), 1.0))
-    T1, r1, i1 = align(src, tgt, ig, params, backend="ell", max_iter=120,
-                       nl_k=160, nl_per_cell=20, nl_builder="grid",
-                       nl_consume="jnp")
-    T2, r2, i2 = align(src, tgt, ig, params, backend="ell", max_iter=120,
-                       nl_k=160, nl_per_cell=20, nl_builder="grid",
-                       nl_consume="fused_interpret")
-    assert int(i2.iterations) == int(i1.iterations)
-    # per-tile reassociation perturbs each step by ~1e-4 relative; over a
-    # hundred gradient-flow iterations the two trajectories settle anywhere
-    # within the convergence basin (~1e-2) — the tight per-pass agreement
-    # lives in test_fused_ell_consume_matches_jnp
-    assert float(jnp.max(jnp.abs(T1 - T2))) < 2e-2
-
-
-def test_fused_vs_jnp_convergence_agreement(rng):
-    """VERDICT r3 task 3: the fused and jnp consume engines may take
-    different iteration COUNTS (f32 reduction order perturbs each step and
-    the indicator schedule is threshold-driven), but both must converge to
-    the same pose. Measured on the real bench workload (TPU, 16k points,
-    92 vs 85 iters): |log(T_jnp T_fused^-1)| = 5.4e-4, 13x below the
-    workload's own noise-floor pose error — pinned here at CI scale."""
-    params = _params()
-    xyz = _scene(rng, n=1024)
-    xi = np.array([0.002, 0.005, -0.003, 0.05, 0.02, 0.35], np.float32)
-    R_m, t_m = lie.se3_exp(jnp.asarray(xi), 1.0)
-    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
-    xyz2 += rng.normal(scale=0.003, size=xyz2.shape).astype(np.float32)
-    src = make_pointcloud(xyz, bucket=1024)
-    tgt = make_pointcloud(xyz2, bucket=1024)
-    # deliberately-imperfect warm start; BOTH engines run exactly 120
-    # iterations (cap) so the comparison measures accumulated per-step
-    # numeric drift, not schedule-break timing
-    ig = lie.rt_to_mat44(*lie.se3_exp(jnp.asarray(xi * 0.3), 1.0))
-    T1, r1, i1 = align(src, tgt, ig, params, backend="ell", max_iter=120,
-                       nl_k=160, nl_per_cell=20, nl_builder="grid",
-                       nl_consume="jnp")
-    T2, r2, i2 = align(src, tgt, ig, params, backend="ell", max_iter=120,
-                       nl_k=160, nl_per_cell=20, nl_builder="grid",
-                       nl_consume="fused_interpret")
-    assert int(i1.iterations) == int(i2.iterations) == 120
-    # accumulated drift over 120 iterations (measured 6.1e-4 here;
-    # 5.4e-4 between CONVERGED poses on the real 16k bench workload)
-    d = np.asarray(T1) @ np.linalg.inv(np.asarray(T2))
-    xi_d = np.linalg.norm(np.asarray(lie.se3_log(
-        jnp.asarray(np.ascontiguousarray(d[:3, :3])),
-        jnp.asarray(np.ascontiguousarray(d[:3, 3])))))
-    assert xi_d < 5e-3, f"engines drifted {xi_d} apart over 120 iters"
-    # neither engine's accuracy degrades vs the true pose
-    T_true = np.asarray(lie.rt_to_mat44(R_m, t_m))
-    errs = []
-    for T in (T1, T2):
-        e = np.asarray(T) @ T_true
-        errs.append(np.linalg.norm(np.asarray(lie.se3_log(
-            jnp.asarray(np.ascontiguousarray(e[:3, :3])),
-            jnp.asarray(np.ascontiguousarray(e[:3, 3]))))))
-    assert max(errs) < 0.05, f"mid-flight accuracy bound: {errs}"
-    assert abs(errs[0] - errs[1]) < 5e-3
+    x64 = xyz.astype(np.float64)
+    y64 = xyz2.astype(np.float64) @ np.asarray(Rinv, np.float64).T + \
+        np.asarray(Tinv, np.float64)
+    ch = {} if channels == "geometric" else dict(
+        xf=feats, yf=feats, xl=labels, yl=labels)
+    A = oracle_kernel_matrix(params, float(ell), x64, y64, **ch)
+    tw_ref, _ = oracle_flow(params, A, x64, y64)
+    assert int(stats.nonzeros) == int((A > 0).sum())
+    np.testing.assert_allclose(float(stats.a_sum), A.sum(), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(twist), tw_ref,
+                               atol=tol * np.linalg.norm(tw_ref))
+    ref = oracle_step_coeffs(params, A, float(ell), x64, y64,
+                             np.asarray(twist[:3], np.float64),
+                             np.asarray(twist[3:], np.float64))
+    for name, g, r in zip("BCDE", (B, C, D, E), ref):
+        np.testing.assert_allclose(float(g), r, rtol=tol,
+                                   atol=tol * abs(ref[0]), err_msg=name)
 
 
 def test_irls_edge_moments_ell_matches_dense(rng):

@@ -1,4 +1,4 @@
-"""TPU NL-means denoise (ops/nlm.py) vs the reference's OpenCV call.
+"""Device NL-means denoise (ops/nlm.py) vs the reference's OpenCV call.
 
 The reference denoises every frame with cv2.fastNlMeansDenoising(Colored)
 (h=10, template 7, search 21; RawImage.cpp:22-25). Our kernel must deliver

@@ -66,7 +66,7 @@ def test_pose_graph_gn_closes_loop(rng):
 
 
 def test_pose_graph_cg_closes_200_keyframe_loop(rng):
-    """VERDICT r3 task 6: the matrix-free block-PCG path (reused from the
+    """The matrix-free block-PCG path (reused from the
     distributed BA) closes a 200-keyframe loop with O(E) memory, and
     matches the dense solve on the same graph."""
     F = 200
@@ -271,7 +271,7 @@ def _run_windowed_slam(rng_seed, window, truncate=False, n_kf=14):
 
 
 def test_sliding_window_marginalization_keeps_information():
-    """Real fixed-lag smoothing (VERDICT task 8): the Schur-complement
+    """Real fixed-lag smoothing: the Schur-complement
     marginal prior must track the full-batch solution far better than
     factor truncation, across seeds."""
     prior_wins = 0
@@ -302,7 +302,7 @@ def test_marginal_prior_is_consistent_quadratic():
 
 
 def test_incremental_flat_cost_1000_keyframes(rng):
-    """iSAM2-analogue incremental mode (round-5 verdict task 7): on a
+    """iSAM2-analogue incremental mode: on a
     1000-keyframe odometry run with periodic local loop factors, the
     per-keyframe optimize() cost must stay flat with trajectory length
     (the batch path re-solves the whole graph each call), and the chain

@@ -1,10 +1,10 @@
 """Trajectory parity vs a literal NumPy simulation of reference align_impl.
 
 The strongest fidelity check available without CUDA: both implementations
-run the real demo clouds under the real outdoor preset and must produce the
-same nonzeros sequence, the same ell schedule, near-identical step sizes,
-and matching poses. (reference_sim.py includes the ELL scan-order cap the
-TPU build drops; on this workload the cap never binds, demonstrating the
+run the demo-sized colored pair (tests/fixtures.py) under the outdoor preset
+and must produce the same nonzeros sequence, the same ell schedule,
+near-identical step sizes, and matching poses. (reference_sim.py includes the ELL scan-order cap this
+build drops; on this workload the cap never binds, demonstrating the
 designs coincide.)
 """
 
@@ -13,8 +13,9 @@ import pytest
 
 import jax.numpy as jnp
 
+from fixtures import write_demo_pcds
 from reference_sim import align_ref_sim
-from unified_cvo_tpu.config import read_cvo_params_yaml
+from unified_cvo_tpu.config import load_preset
 from unified_cvo_tpu.datasets.pcd import read_pcd
 from unified_cvo_tpu.models.align import align
 from unified_cvo_tpu.utils.pointcloud import make_pointcloud
@@ -23,11 +24,12 @@ HORIZON = 250
 
 
 @pytest.mark.slow
-def test_demo_trajectory_matches_reference_simulation():
-    sx, sc = read_pcd("/root/reference/demo_data/source.pcd")
-    tx, tc = read_pcd("/root/reference/demo_data/target.pcd")
+def test_demo_trajectory_matches_reference_simulation(tmp_path):
+    src_path, tgt_path = write_demo_pcds(tmp_path)
+    sx, sc = read_pcd(src_path)
+    tx, tc = read_pcd(tgt_path)
     feat = lambda c: np.concatenate([c, np.zeros((len(c), 2), np.float32)], 1)
-    p = read_cvo_params_yaml("/root/reference/cvo_params/cvo_outdoor_params.yaml")
+    p = load_preset("cvo_outdoor_params")
     dist = float(np.linalg.norm(sx.mean(0) - tx.mean(0)))
     p = p.replace(
         ell_init=dist,
@@ -60,14 +62,14 @@ def test_demo_trajectory_matches_reference_simulation():
 
 
 def test_dense_scene_neighbor_cap_convergence_parity(rng):
-    """SURVEY §7 hard-part 4 / VERDICT task 9: convergence behavior where
+    """SURVEY §7 hard-part 4 / convergence behavior where
     the reference's num_neighbors row cap and its 1.2x shrink
     (CvoGPU.cu:576-589, 1519-1529) actually BIND. The scene is much denser
     than the kernel support (rows want ~380 entries at a 32 cap; the shrink
     drives the cap to single digits near convergence), the regime the
     uncapped streaming design intentionally differs in. Result: the
     scan-order cap is an unbiased row subsample, so the capped reference
-    and the uncapped TPU path follow the same ell schedule and converge to
+    and the uncapped streaming path follow the same ell schedule and converge to
     the same pose (|dT| < 1e-5) — the cap is a memory-format artifact with
     no convergence effect, which is why dropping it is sound."""
     from reference_sim import kernel_rows_capped

@@ -104,7 +104,7 @@ def test_adaptive_ell_align_converges(rng):
 
 
 def test_adaptive_ell_on_ell_backend_matches_dense(rng):
-    """VERDICT r3 task 5: ACVO no longer falls to the dense path — the ELL
+    """ACVO no longer falls to the dense path — the ELL
     backend consumes three candidate lists (xy/xx/yy) with a growth-aware
     rebuild trigger, and must converge like the dense backend."""
     from unified_cvo_tpu.models.align import align
@@ -169,14 +169,14 @@ def test_lyft_handler_roundtrip(tmp_path):
     np.testing.assert_array_equal(lab, np.arange(100))
 
 
-def test_point_covariances_tpu_matches_host():
+def test_point_covariances_device_matches_host():
     """On-device blocked-KNN covariance (utils/covariance.py
-    point_covariances_tpu, the cuKdTree CvoPointCovariance.cu twin) matches
+    point_covariances_device, the cuKdTree CvoPointCovariance.cu twin) matches
     the host cKDTree implementation, with masked padding zeroed."""
     import numpy as np
 
     from unified_cvo_tpu.utils.covariance import (
-        point_covariances, point_covariances_tpu)
+        point_covariances, point_covariances_device)
 
     rng = np.random.default_rng(7)
     n, valid = 512, 450
@@ -184,7 +184,7 @@ def test_point_covariances_tpu_matches_host():
     mask = np.zeros(n, np.float32)
     mask[:valid] = 1.0
     cov_h, eig_h, deg_h = point_covariances(xyz[:valid], k=16)
-    cov_d, eig_d, deg_d = point_covariances_tpu(xyz, mask, k=16, block=128)
+    cov_d, eig_d, deg_d = point_covariances_device(xyz, mask, k=16, block=128)
     np.testing.assert_allclose(np.asarray(cov_d)[:valid], cov_h, atol=2e-5)
     np.testing.assert_allclose(np.asarray(eig_d)[:valid], eig_h, atol=2e-5)
     assert np.abs(np.asarray(cov_d)[valid:]).max() == 0.0

@@ -1,6 +1,6 @@
-"""unified_cvo_tpu — TPU-native continuous visual odometry & registration.
+"""unified_cvo_tpu — continuous visual odometry & registration in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 UMich-CURLY/unified_cvo (RKHS correspondence-free registration): point clouds
 are lifted to functions f(X) = sum_i l_i k(., x_i) in a reproducing-kernel
 Hilbert space and registration maximizes <f(X), f(TY)> over SE(3) by gradient
@@ -16,42 +16,28 @@ parallel  : mesh sharding, batched f2f alignment, distributed BA
 utils     : point-cloud containers, voxel grid, trajectory metrics
 """
 
+import os as _os
+
 import jax as _jax
 
 # Registration math is cancellation-heavy (pose chains, moment contractions,
-# kernel distances at scene-coordinate magnitudes); TPU XLA's default bf16
-# matmul inputs silently destroy it (~0.4% rounding of a rotation entry per
-# composition). The hot Pallas/jnp kernels pin their precision explicitly;
-# this covers every small pose/moment matmul elsewhere at negligible cost.
+# kernel distances at scene-coordinate magnitudes). An f32 matmul left at the
+# default precision may run in TF32 on a GPU (~3 decimal digits: ~0.05%
+# rounding of a rotation entry per composition). The hot kernels pin their
+# precision explicitly; this covers every small pose/moment matmul elsewhere
+# at negligible cost.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache: over remote-TPU links a cold compile costs
-# tens of seconds to minutes of round-tripping, per process. Cache compiled
-# executables on disk so drivers, benches, and tests pay it once per program
-# shape. Opt out with UNIFIED_CVO_NO_COMPILE_CACHE=1.
-import os as _os
+# Persistent compilation cache, so drivers, benches, and tests pay a cold
+# compile once per program shape. JAX_COMPILATION_CACHE_DIR, when set, is
+# used as it is; otherwise the cache lives at one fixed directory inside the
+# checkout (listed in .gitignore). Opt out with UNIFIED_CVO_NO_COMPILE_CACHE=1.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache")
 
 if not _os.environ.get("UNIFIED_CVO_NO_COMPILE_CACHE"):
-    # Partition by host CPU identity: XLA:CPU AOT executables are
-    # machine-type specific, and a cache entry produced on a different
-    # host intermittently loads with mismatched buffer layouts
-    # ("Execution supplied 4 buffers but compiled program expected 7",
-    # plus a cpu_aot_loader machine-feature warning — measured round 5).
-    import hashlib as _hashlib
-    import platform as _platform
-
-    try:
-        with open("/proc/cpuinfo") as _f:
-            _flags = next((ln for ln in _f if ln.startswith("flags")), "")
-    except OSError:
-        _flags = ""
-    _mkey = _hashlib.sha1(
-        (_platform.machine() + _flags).encode()).hexdigest()[:10]
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.expanduser(f"~/.cache/unified_cvo_tpu_xla/{_mkey}")))
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from unified_cvo_tpu.config import CvoParams, read_cvo_params_yaml

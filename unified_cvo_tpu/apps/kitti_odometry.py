@@ -68,8 +68,7 @@ def run_sequence(
         return None if pair is None else (*pair, None)
 
     if frontend == "device":
-        # whole measurement chain on the accelerator (round-5 verdict
-        # task 3): census-SGM disparity + DSO selection + backprojection
+        # whole measurement chain on the accelerator: census-SGM disparity + DSO selection + backprojection
         # in one jit, no host CPU in the per-frame path. Semantics stay on
         # the host pipeline (no device semantic reader).
         if semantic:

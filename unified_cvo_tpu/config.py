@@ -13,10 +13,7 @@ modalities.
 from __future__ import annotations
 
 import dataclasses
-import re
-from typing import Optional
-
-import yaml
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,34 +97,70 @@ class CvoParams:
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(CvoParams)}
 
 
-def read_cvo_params_yaml(path: str) -> CvoParams:
-    """Load a reference-format YAML preset (reference CvoParams.hpp:193-303).
+PRESET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "presets")
 
-    Accepts both plain YAML and the OpenCV-style files under
-    reference cvo_params/ that begin with a '%YAML:1.0' directive.
+
+def parse_flat_params(text: str) -> dict:
+    """Parse the flat `key: value` preset format of the reference's
+    cvo_params/*.yaml files (read by CvoParams.hpp:193-303 through
+    cv::FileStorage): an optional `%YAML:1.0` directive and `---` marker,
+    `#` comments, one scalar per line. Values come back as int, float, or
+    the bare string (OpenCV writes booleans as True/False words)."""
+    out = {}
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.split("#", 1)[0].strip()
+        if not line or line.startswith("%") or line == "---":
+            continue
+        key, sep, value = line.partition(":")
+        key, value = key.strip(), value.strip().strip("'\"")
+        if not sep or not key:
+            raise ValueError(f"line {lineno}: expected 'key: value', got {raw!r}")
+        for cast in (int, float):
+            try:
+                out[key] = cast(value)
+                break
+            except ValueError:
+                continue
+        else:
+            out[key] = value
+    return out
+
+
+def _coerce(want, value):
+    if want in ("int", int):
+        if isinstance(value, str):
+            return int(value.lower() in ("true", "1", "yes"))
+        return int(value)
+    if want in ("float", float):
+        return float(value)
+    return value
+
+
+def read_cvo_params_yaml(path: str) -> CvoParams:
+    """Load a reference-format preset file (reference CvoParams.hpp:193-303).
+
     Unknown keys are ignored; missing keys keep their defaults, matching the
     reference reader's every-field-optional behavior.
     """
     with open(path) as f:
-        text = f.read()
-    # Strip the OpenCV '%YAML:1.0' directive which PyYAML rejects.
-    text = re.sub(r"^%YAML[^\n]*\n", "", text)
-    data = yaml.safe_load(text) or {}
-    params = CvoParams()
-    kw = {}
-    for key, value in data.items():
-        if key not in _FIELD_TYPES:
-            continue
-        want = _FIELD_TYPES[key]
-        if want in ("int", int):
-            # OpenCV yaml writes booleans as True/False words sometimes.
-            if isinstance(value, bool):
-                value = int(value)
-            elif isinstance(value, str):
-                value = int(value.strip().lower() in ("true", "1", "yes"))
-            else:
-                value = int(value)
-        elif want in ("float", float):
-            value = float(value)
-        kw[key] = value
-    return params.replace(**kw)
+        data = parse_flat_params(f.read())
+    return CvoParams().replace(**{
+        k: _coerce(_FIELD_TYPES[k], v) for k, v in data.items()
+        if k in _FIELD_TYPES})
+
+
+def preset_path(name: str) -> str:
+    """Path of an in-repo preset, by its reference file name (with or
+    without the .yaml suffix), e.g. 'cvo_geometric_params_img_gpu0'."""
+    base = name if name.endswith(".yaml") else name + ".yaml"
+    path = os.path.join(PRESET_DIR, base)
+    if not os.path.exists(path):
+        known = sorted(f[:-5] for f in os.listdir(PRESET_DIR)
+                       if f.endswith(".yaml"))
+        raise FileNotFoundError(f"no preset {name!r}; known: {known}")
+    return path
+
+
+def load_preset(name: str) -> CvoParams:
+    """CvoParams from an in-repo preset (see preset_path)."""
+    return read_cvo_params_yaml(preset_path(name))

@@ -138,9 +138,9 @@ def read_npy(path: str) -> np.ndarray:
 
 class PrefetchLoader:
     """Threaded native file prefetcher: overlaps disk IO (npy / raw-f32 .bin)
-    with TPU compute. The reference's data path is synchronous C++ inside the
-    drivers; here odometry apps submit frame k+1 while the chip registers
-    frame k."""
+    with device compute. The reference's data path is synchronous C++
+    inside the drivers; here odometry apps submit frame k+1 while the
+    accelerator registers frame k."""
 
     RAW_F32 = 0
     NPY = 1

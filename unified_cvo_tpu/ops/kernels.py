@@ -9,7 +9,7 @@ computes its A tile and immediately reduces it:
 
   * flow:  row sums s_i = sum_j A_ij and the matmul w_i = sum_j A_ij y_j give
     omega = sum_i x_i cross w_i / c and v = sum_i (w_i - s_i x_i) / d —
-    exactly compute_flow_gpu_no_eigen's per-row accumulation, but on the MXU.
+    exactly compute_flow_gpu_no_eigen's per-row accumulation, as a matmul.
   * step coefficients B,C,D,E: per-pair beta/gamma/delta/epsilon are built
     from four dot-product matrices X @ xi{1..4}z^T minus per-column scalars,
     then combined elementwise (compute_step_size_poly_coeff semantics).
@@ -41,10 +41,11 @@ DEFAULT_CHUNK = 2048
 
 
 def _mm(a, b):
-    """f32-exact matmul. TPU XLA lowers f32 dots to bf16 inputs by default;
-    the kernel/flow/step math cancels catastrophically at bf16 (e.g. the
-    A @ y flow accumulation: ~0.4%% rounding of 30 m coordinates is ~10 cm
-    noise on a cm-scale signal), so every reduction here pins HIGHEST."""
+    """f32-exact matmul. On a GPU an f32 dot left at the default precision
+    may run in TF32 (~3 decimal digits), and the kernel/flow/step math
+    cancels catastrophically at that precision (e.g. the A @ y flow
+    accumulation: ~0.05% rounding of 30 m coordinates is ~1.5 cm noise on
+    a cm-scale signal), so every reduction here pins HIGHEST."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -157,8 +158,8 @@ def kernel_block(params, ell, x: PointCloud, yb: PointCloud):
 
     # materialize the tile once: every caller feeds it to several
     # reductions/matmuls, and without the barrier XLA re-fuses this whole
-    # exp-heavy chain into each consumer (measured ~10x on the dense IRLS
-    # edge pass; same effect as in neighbors.flow_stats_ell)
+    # exp-heavy chain into each consumer (same effect as in
+    # neighbors.flow_stats_ell)
     return lax.optimization_barrier(jnp.where(ok & (a > sp), a, 0.0))
 
 
@@ -221,8 +222,8 @@ def kernel_block_dense(params, kernel_inv, x: PointCloud, yb: PointCloud):
 
     # materialize the tile once: every caller feeds it to several
     # reductions/matmuls, and without the barrier XLA re-fuses this whole
-    # exp-heavy chain into each consumer (measured ~10x on the dense IRLS
-    # edge pass; same effect as in neighbors.flow_stats_ell)
+    # exp-heavy chain into each consumer (same effect as in
+    # neighbors.flow_stats_ell)
     return lax.optimization_barrier(jnp.where(ok & (a > sp), a, 0.0))
 
 
@@ -474,7 +475,7 @@ def association_topk(
 ):
     """Per-source-row top-k kernel entries: (values [N,k], target idx [N,k]).
 
-    TPU-shaped replacement for the reference's sparse Association export
+    Static-shape replacement for the reference's sparse Association export
     (compute_association_gpu, CvoGPU.cu:1876-1995): fixed-width rows with
     value 0 / index -1 padding instead of an Eigen sparse matrix.
     """

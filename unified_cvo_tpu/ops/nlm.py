@@ -1,11 +1,11 @@
-"""Non-local-means image denoising on TPU — the RawImage preprocessing.
+"""Non-local-means image denoising on device — the RawImage preprocessing.
 
 The reference denoises EVERY incoming frame with OpenCV's CPU
 fastNlMeansDenoising(Colored) (h=10, template 7, search 21;
 src/utils/RawImage.cpp:22-25) before computing intensity/gradients — at
-KITTI resolution that is ~460 ms/frame of single-host CPU, several times
-the cost of the registration itself. This is the classic Buades NL-means
-with the same (h, patch, search) parameters, restructured for TPU:
+KITTI resolution that costs several times the registration itself on one
+host CPU. This is the classic Buades NL-means with the same (h, patch,
+search) parameters, restructured for an accelerator:
 
     for each of the 21x21 search offsets t:
         d(x)   = box_7x7((I(x) - I(x+t))^2)      # patch distance
@@ -14,9 +14,8 @@ with the same (h, patch, search) parameters, restructured for TPU:
 
 One `lax.fori_loop` over the 21 search ROW offsets (the 21 column offsets
 of each row are batched as static slices of a once-padded plane, and the
-7x7 patch sums are static shift-adds — cumsum scans and per-iteration
-reflect pads each measured ~30x slower) — pure VPU streaming, ~16 ms
-device time at KITTI size vs ~570 ms for the OpenCV path. For color
+7x7 patch sums are static shift-adds rather than cumsum scans, with one
+hoisted reflect pad) — pure elementwise streaming. For color
 input the weights are computed from the luminance and applied to all three
 channels (OpenCV's colored variant similarly drives weights from the L
 channel in Lab space); output differs from OpenCV pixelwise but delivers

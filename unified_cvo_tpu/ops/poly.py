@@ -6,7 +6,8 @@ the smallest positive real root via companion-matrix eigenvalues
 (reference: src/cvo/CvoGPU.cu:1128-1163, src/cvo/LieGroup.cpp:290-340,
 poly_solver_order3).
 
-TPUs have no complex eigendecomposition, so we solve the cubic in closed form
+jit has no complex eigendecomposition on accelerators, so we solve the cubic
+in closed form
 with real arithmetic only: the trigonometric method when the discriminant says
 three real roots, Cardano's single real root otherwise. Branches are selected
 with `jnp.where` over guarded operands so the whole thing lives inside jit.

@@ -1,12 +1,11 @@
-"""Device census/semi-global stereo matching — the stereo frontend on TPU.
+"""Device census/semi-global stereo matching — the stereo frontend on device.
 
 The reference computes left disparity on the host at image load (libelas,
 src/utils/ImageStereo.cpp + StaticStereo.hpp:16-44, the 11.3k-LoC
 thirdparty/libelas role); this repo's host paths are cv2.StereoSGBM and the
-native AVX2 census-SGM (native/cvo_native.cpp). On the 2-core KITTI driver
-host those are the end-to-end wall (~18 ms/frame of a ~72 ms budget), while
-the TPU align side has 10x headroom — so this module moves the whole
-matcher on device as one jit: census -> hamming cost volume -> 6-path SGM
+native AVX2 census-SGM (native/cvo_native.cpp). On a small driver host
+those become the end-to-end wall, so this module moves the whole matcher
+on device as one jit: census -> hamming cost volume -> 6-path SGM
 aggregation (two batched lax.scans) -> WTA + uniqueness + subpixel ->
 left/right consistency -> 3x3 valid-median.
 
@@ -24,16 +23,17 @@ itself depth-parity-settled against cv2 SGBM in BASELINE.md):
   - 3x3 median over valid neighbors when self valid and n >= 5 (:452-478)
 
 Deviation: the native speckle pass is a connected-component flood fill
-(:480-520) — inherently sequential/data-dependent, no TPU formulation.
+(:480-520) — inherently sequential/data-dependent, no static-shape
+formulation.
 Device twin: a local-density test (valid neighbors within |Delta d| <= 2
 in a 9x9 window >= `speckle_density`) that kills the same isolated
 LR-survivors; region-scale parity is gated by the disparity-EPE tests in
 tests/test_sgm.py rather than bitwise agreement.
 
-The disparity axis D (default 128) sits in the TPU lane dimension; the
+The disparity axis D (default 128) is the minor (contiguous) axis; the
 scan states are [G, lines, D] with all six directions batched into two
 scans (flips + a per-step x-shift for the diagonals), so one scan step is
-a handful of VPU ops on a [4, W, 128] block.
+a handful of elementwise ops on a [4, W, 128] block.
 """
 
 from __future__ import annotations
@@ -106,10 +106,10 @@ def _sgm_scan(costs, has_prev_masks, shift_mask, P1, P2, unroll: int = 8):
     Returns the stacked per-step Lc volume [S, G, L, D].
 
     `unroll` sub-steps run inside each lax.scan step: per-step work is a
-    handful of VPU ops on a [G, L, D] block, so the scan's fixed per-step
-    cost dominates — unrolling 8 recurrences per step cut the 512x320
-    KITTI-driver matcher ~4x on the v5e (the trailing partial chunk is
-    padded with dummy steps and sliced off).
+    handful of elementwise ops on a [G, L, D] block, so the scan's fixed
+    per-step cost dominates; unrolling amortizes it over 8 recurrences
+    (the trailing partial chunk is padded with dummy steps and sliced
+    off).
     """
     S, G, L, D = costs.shape
     p1 = jnp.int32(P1)
@@ -200,10 +200,9 @@ def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
     h, w = cl.shape
 
     # ---- WTA + uniqueness + subpixel (first-min index, like the C++).
-    # Layout discipline (round-5 lesson, ops/neighbors.py): D stays in the
-    # lane dim for every [H, W, D] op; per-best values come from one-hot
-    # reductions over D (a take_along_axis on the minor axis is a
-    # per-element gather, measured 10x the one-hot stream)
+    # D stays the minor axis for every [H, W, D] op; per-best values come
+    # from one-hot reductions over D rather than a take_along_axis gather
+    # on the minor axis
     bc = jnp.min(agg, axis=-1)
     best = jnp.argmin(agg, axis=-1)
     dd = jnp.arange(D)

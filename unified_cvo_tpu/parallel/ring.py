@@ -105,7 +105,7 @@ def make_ring_full_align(params: CvoParams, mesh: Mesh, axis: str = "sp",
     def local(x_shard, y_shard, ig):
         T, ret, info = align(
             x_shard, y_shard, ig, params, chunk=chunk, max_iter=max_iter,
-            ring_axis=axis, spatial_culling=False)
+            ring_axis=axis)
         return T, ret, {
             "iterations": info.iterations, "final_ell": info.final_ell,
             "nonzeros": info.nonzeros, "inner_product": info.inner_product,

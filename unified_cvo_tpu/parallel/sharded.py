@@ -1,7 +1,7 @@
 """Multi-chip sharding of the registration workload over a device Mesh.
 
 The reference is single-process single-GPU (SURVEY.md §2.7); this module is
-the TPU-native scaling design:
+the multi-device scaling design:
 
   * **dp** — data parallel over frame *pairs*: batched frame-to-frame
     alignments, one (or more) pairs per device. Embarrassingly parallel;
@@ -13,7 +13,8 @@ the TPU-native scaling design:
     the N x M pairwise kernel (SURVEY.md §5): N x M never materializes on any
     one chip.
 
-Both compose on a 2-D (dp, sp) mesh via `shard_map`; collectives ride ICI.
+Both compose on a 2-D (dp, sp) mesh via `shard_map`; XLA hands the
+collectives to NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def make_sharded_full_align(params: CvoParams, mesh: Mesh, axis: str = "sp",
     def local(src, tgt_shard, ig):
         T, ret, info = align(
             src, tgt_shard, ig, params, chunk=chunk, max_iter=max_iter,
-            psum_axis=axis, spatial_culling=False)
+            psum_axis=axis)
         return T, ret, {
             "iterations": info.iterations, "final_ell": info.final_ell,
             "nonzeros": info.nonzeros, "inner_product": info.inner_product,

@@ -7,9 +7,9 @@ visualization. Two implementations:
 
 - `point_covariances`: host-side (cKDTree KNN + batched eigh), used by
   the front-end at cloud-construction time like the reference.
-- `point_covariances_tpu`: on-device jnp version — blocked brute-force
-  KNN (`lax.top_k` per source block, the TPU analogue of the reference's
-  cuKdTree NearestKSearch) + closed-form symmetric 3x3 eigenvalues, for
+- `point_covariances_device`: on-device jnp version — blocked brute-force
+  KNN (`lax.top_k` per source block, the static-shape analogue of the
+  reference's cuKdTree NearestKSearch) + closed-form symmetric 3x3 eigenvalues, for
   covariance recomputation inside jitted pipelines.
 """
 
@@ -46,9 +46,9 @@ def point_covariances(xyz: np.ndarray, k: int = 32):
 @functools.partial(
     __import__("jax").jit, static_argnames=("k", "block")
 )
-def point_covariances_tpu(xyz, mask, k: int = 32, block: int = 256):
+def point_covariances_device(xyz, mask, k: int = 32, block: int = 256):
     """On-device per-point KNN covariance (reference CvoPointCovariance.cu:
-    compute_covariance with cuKdTree K=32 neighbors, :122-233), TPU-native:
+    compute_covariance with cuKdTree K=32 neighbors, :122-233), on device:
     blocked brute-force [block, N] distance tiles + `lax.top_k`, batched
     covariance, and closed-form symmetric 3x3 eigenvalues (no eigh inside
     jit). Invalid (masked) points yield zero covariance.
@@ -97,7 +97,7 @@ def point_covariances_tpu(xyz, mask, k: int = 32, block: int = 256):
 
 def sym3_eigenvalues(A):
     """Closed-form ascending eigenvalues of symmetric 3x3 matrices [.,3,3]
-    (trigonometric method — Smith 1961), jit/TPU friendly (no complex, no
+    (trigonometric method — Smith 1961), jit friendly (no complex, no
     iterative eigh)."""
     import jax.numpy as jnp
 

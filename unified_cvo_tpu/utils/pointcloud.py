@@ -1,8 +1,8 @@
-"""Fixed-capacity padded SoA point clouds (the TPU-native CvoPointCloud).
+"""Fixed-capacity padded SoA point clouds (the static-shape CvoPointCloud).
 
 The reference's CvoPointCloud is a dynamic SoA container with compile-time
 feature/class dimensions (reference: include/UnifiedCvo/utils/CvoPointCloud.hpp:35-209,
-PointSegmentedDistribution.hpp:17-99). On TPU all shapes must be static, so a
+PointSegmentedDistribution.hpp:17-99). Under jit all shapes are static, so a
 cloud is a padded pytree: `xyz [N,3]`, `features [N,F]`, `labels [N,C]`,
 `geometric_types [N,2]`, plus a validity `mask [N]`. F and C are static shape
 parameters (the reference's FEATURE_DIMENSIONS / NUM_CLASSES template args);
